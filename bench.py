@@ -1,41 +1,36 @@
-"""Driver-facing benchmark entry (run on real TPU hardware each round).
+"""Benchmark entry: config-1 equi-join throughput on one NVIDIA GPU.
 
-Prints ONE JSON line:
-  {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}
+Prints ONE JSON line on stdout:
+  {"metric": ..., "value": N, "unit": ..., "vs_baseline": N,
+   "device": {"platform": ..., "device_kind": ..., "count": N}}
 
-Headline (BASELINE.json:L2): single-chip equi-join throughput on the
+Headline (BASELINE.json:L2): single-card equi-join throughput on the
 config-1 relation pair (uniform int64 1M x 1M, 1 payload col), probe-side
 rows/s. The reference has no retrievable published numbers
 (BASELINE.json:L13 "published": {}; BASELINE.md row 1), so vs_baseline is
-defined against the binding acceptance target instead: the derived
-speed-of-light join time from the measured HBM bandwidth x 80%
-(BASELINE.md rows 3/9/10). vs_baseline >= 1.0 means the north-star
-single-chip target is met.
+defined against the byte-model time at the copy rate measured in the same
+process x 80% (BASELINE.md rows 3/9/10). Exits nonzero, printing no
+result, when JAX finds no GPU.
 
-Everything else (per-op table, HBM BW) goes to stderr.
+Everything else (per-op table, copy rate) goes to stderr.
 """
 
 import json
-import os
 import sys
-
-# Multi-operand lax.sort programs take minutes of XLA:TPU compile time
-# (measured 645 s for the 5-operand stable build sort, warm exec 5 ms);
-# the persistent cache makes every rerun of this entry near-instant.
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(__file__), ".jaxcache"))
 
 
 def main():
     from tpq.bench import roofline
+    from tpq.bench.device import require_gpu
     from tpq.bench.runner import run_config
     from tpq.config import PRESETS
 
+    dev = require_gpu()
     hbm_bw = roofline.measure_hbm_bw(size_mb=256, iters=5)
-    print(f"measured HBM BW: {hbm_bw:.0f} GB/s", file=sys.stderr)
+    print(f"measured copy rate: {hbm_bw:.0f} GB/s on {dev}", file=sys.stderr)
 
     cfg = PRESETS["single_chip_1m"]
-    report = run_config(cfg, hbm_bw=hbm_bw)
+    report, _ = run_config(cfg, hbm_bw=hbm_bw)
     op = report["ops"][0]
     for line in json.dumps(report, indent=2, default=str).splitlines():
         print(line, file=sys.stderr)
@@ -49,6 +44,7 @@ def main():
         "value": round(rows_per_sec),
         "unit": "rows/s",
         "vs_baseline": round(vs_baseline, 4),
+        "device": dev,
     }))
 
 

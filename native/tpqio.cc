@@ -1,7 +1,7 @@
 // Native host data plane: colio load/dump + threaded seed-stable datagen.
 //
 // The reference is a native C++ program (BASELINE.json:L5); in this
-// framework the TPU compute path is JAX/Pallas and the native layer owns
+// framework the device compute path is JAX/XLA and the native layer owns
 // the host-side runtime around it (SURVEY.md §2.3): zero-copy columnar
 // file IO (mmap) and benchmark-relation generation that saturates host
 // cores instead of a single numpy stream. Exposed through a C ABI and

@@ -2,6 +2,7 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from tpq import Table
 from tpq.columnar import canonicalize, next_pow2
@@ -168,3 +169,20 @@ def _run_scan_cases(rng, jnp, cummax_i32, cumsum_i32, fill_forward,
         if vnp.any():
             first = int(np.argmax(vnp))
             assert np.array_equal(np.asarray(f)[first:], exp[first:]), n
+
+
+@pytest.mark.parametrize("env", [None, "/var/cache/tpq-test"])
+def test_compile_cache_dir_rule(monkeypatch, env):
+    """JAX_COMPILATION_CACHE_DIR when set, else <repo>/.jaxcache; the
+    package configures JAX with exactly that."""
+    import jax
+
+    import tpq
+
+    assert jax.config.jax_compilation_cache_dir == tpq.compile_cache_dir()
+    if env is None:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        assert tpq.compile_cache_dir() == str(tpq.REPO_ROOT / ".jaxcache")
+    else:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env)
+        assert tpq.compile_cache_dir() == env

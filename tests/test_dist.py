@@ -26,27 +26,21 @@ def _canon_np(cols: dict) -> dict:
     return {n: cols[n][order] for n in names}
 
 
-# Cold-compile budget (VERDICT r3 item 6): each (algo, impl) variant
-# compiles a fresh 8-shard shard_map program (~1 min cold on this box).
-# The fast suite keeps one variant per exchange rung — (hash, dense) and
-# (merge, ring) — and marks the cross combinations slow.
+# Cold-compile budget: each (algo, impl) variant compiles a fresh
+# 8-shard shard_map program. The fast suite keeps (hash, dense) and marks
+# the cross combinations slow; the ring rung stays fast via
+# test_ring_exchange_equals_dense.
 _DIST_MATRIX = [
     ("hash", "dense"),
-    ("hash", "ragged"),  # skips on CPU (no ThunkEmitter); real-slice rung
-    pytest.param("merge", "ring", marks=pytest.mark.slow),  # 67 s cold;
-    # ring rung stays fast via test_ring_exchange_equals_dense
+    pytest.param("merge", "ring", marks=pytest.mark.slow),
     pytest.param("merge", "dense", marks=pytest.mark.slow),
     pytest.param("hash", "ring", marks=pytest.mark.slow),
-    pytest.param("merge", "ragged", marks=pytest.mark.slow),
 ]
 
 
 @requires_multidevice
 @pytest.mark.parametrize("algo,exchange_impl", _DIST_MATRIX)
 def test_dist_join_matches_oracle(oracle, tmp_path, algo, exchange_impl):
-    if exchange_impl == "ragged" and jax.default_backend() == "cpu":
-        pytest.skip("ragged-all-to-all unimplemented in XLA:CPU ThunkEmitter "
-                    "(verified 2026-08-17); rung validated on a real slice only")
     mesh = make_mesh(8)
     r = datagen.gen_relation_np(5000, 700, payloads=1, seed=31)
     s = datagen.gen_relation_np(8000, 700, payloads=2, seed=32)
@@ -126,38 +120,8 @@ def test_ring_exchange_equals_dense():
 
 
 @requires_multidevice
-@pytest.mark.slow  # 700 s cold on this box (r5 sweep): interpret-mode
-# Pallas under an 8-shard shard_map ring; the driver's dryrun_multichip
-# exercises the same path every round (dense+lane variant)
-def test_dist_join_lane_local_impl(oracle, tmp_path):
-    """local_impl="lane": the compiled lane-bucket kernels run inside the
-    shard_map body with R's table built once per shard and probed per
-    ring hop (VERDICT r2 item 3). Ring is the interesting variant (the
-    hop loop shares one build); sizes are small because interpret-mode
-    Pallas under an 8-shard shard_map compiles slowly on CPU."""
-    mesh = make_mesh(8)
-    r = datagen.gen_relation_np(1500, 400, payloads=1, seed=31)
-    s = datagen.gen_relation_np(2500, 400, payloads=2, seed=32)
-    pr, ps, po = (tmp_path / f"lane_{n}.tpqc" for n in ("r", "s", "o"))
-    colio.dump(str(pr), r)
-    colio.dump(str(ps), s)
-    oracle("join", algo="hash", left=pr, right=ps, out=po)
-    expected = colio.load(str(po))
-
-    R = DistTable.from_numpy(r, mesh)
-    S = DistTable.from_numpy(s, mesh)
-    # lane_depth=16: the interpret-mode walk graph scales with depth x 4
-    # groups; 16 is ample at these row counts and ~3x the compile speed
-    out, overflow = dist_hash_join(R, S, mesh, out_capacity_per_shard=1 << 14,
-                                   exchange_impl="ring",
-                                   local_impl="lane", lane_depth=16)
-    assert int(np.asarray(overflow).sum()) == 0
-    assert_tables_equal(_canon_np(out.to_numpy()), expected, "dist_lane_ring")
-
-
-@requires_multidevice
-@pytest.mark.slow  # 123 s cold (two full ring-join compiles); the
-# renegotiation test and dryrun_multichip keep the contract covered
+@pytest.mark.slow  # two full ring-join compiles; the renegotiation
+# test and dryrun_multichip keep the contract covered
 def test_ring_join_output_overflow_not_silent():
     """Round-2 regression (MULTICHIP_r02 rc=1): the final with_capacity
     clamped num_rows BEFORE the overflow check, so the ring variant
@@ -313,3 +277,14 @@ def test_skew_split_actually_diverts_heavy_keys():
         skew=SkewConfig(candidates_per_shard=8, threshold=128,
                         replica_capacity_per_shard=4096))
     assert int(np.asarray(ovf_split).sum()) == 0
+
+
+def test_chip_smoke_dist_phase_on_4_device_submesh(oracle_bin, tmp_path):
+    """Rehearsal of chip_smoke.py's four-card phase (config 5's path:
+    dist_hash_join_renegotiated, one shard per device, exact count and
+    key-range slices vs the oracle) on 4 of the 8 virtual CPU devices."""
+    import chip_smoke
+
+    res = chip_smoke.dist_join_check(1 << 13, 4, slices=2,
+                                     workdir=tmp_path, oracle=oracle_bin)
+    assert "count-exact" in res and "over 4 devices" in res

@@ -1,5 +1,4 @@
-"""PAD/PACK movers (tpq/kernels/move.py) vs explicit numpy placement —
-interpret mode on CPU; the compiled twins run in the TPU-marked test."""
+"""PAD/PACK movers (tpq/kernels/move.py) vs explicit numpy placement."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -19,10 +18,11 @@ def _pad_case(n_live, out_len, nplanes, seed, n_alloc=None):
 
 @pytest.mark.parametrize("n_live,out_len,nplanes,seed", [
     (3000, 4096, 1, 0),
-    pytest.param(5000, 8192, 3, 1, marks=pytest.mark.slow),  # 9 s cold
+    (5000, 8192, 3, 1),
     (0, 2048, 2, 2),
-    pytest.param(2048, 2048, 2, 3, marks=pytest.mark.slow),  # dense
+    (2048, 2048, 2, 3),  # dense
     (1, 2048, 1, 4),
+    (777, 1000, 2, 5),   # lengths not a multiple of 128
 ])
 def test_pad_matches_numpy(n_live, out_len, nplanes, seed):
     planes, dest, n_live, out_len = _pad_case(n_live, out_len, nplanes, seed)
@@ -53,11 +53,24 @@ def test_pad_with_dead_suffix():
     np.testing.assert_array_equal(np.asarray(outs[0]), want)
 
 
+def test_pad_last_slot_and_out_of_range_dest():
+    """A live row may land on slot out_len-1; a live dest at or past
+    out_len (or negative) is dropped, never wrapped."""
+    p = jnp.asarray(np.array([11, 22, 33, 44], np.int32))
+    dest = jnp.asarray(np.array([-1, 5, 9, 10], np.int32))
+    (o,), occ = pad([p], dest, 4, 10)
+    want = np.zeros(10, np.int32)
+    want[5], want[9] = 22, 33
+    np.testing.assert_array_equal(np.asarray(o), want)
+    np.testing.assert_array_equal(np.asarray(occ), (want != 0).astype(np.int32))
+
+
 @pytest.mark.parametrize("n,density,nplanes,seed", [
     (4096, 0.6, 1, 0),
-    pytest.param(10000, 0.3, 4, 1, marks=pytest.mark.slow),  # 10 s cold
-    pytest.param(2048, 0.0, 2, 2, marks=pytest.mark.slow),   # 11 s cold
+    (10000, 0.3, 4, 1),
+    (2048, 0.0, 2, 2),   # all dead
     (2048, 1.0, 2, 3),
+    (1000, 0.5, 3, 4),   # length not a multiple of 128
 ])
 def test_pack_matches_numpy(n, density, nplanes, seed):
     rng = np.random.default_rng(seed)

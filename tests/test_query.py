@@ -30,36 +30,20 @@ def test_pipeline_matches_chained_oracle(oracle, tmp_path, algo):
     assert_tables_equal(canonicalize(out), expected, f"pipeline_{algo}")
 
 
-@pytest.mark.slow  # 146 s cold (two lane compiles); the faster
-# pipeline_lane_impl_matches_sorted covers the pushdown differentially
-def test_lane_pushdown_equals_filter_then_join():
-    """probe_keep pushdown on the lane engine == materialized filter
-    followed by the join (the config-4 fusion, r5)."""
-    import jax.numpy as jnp
+def test_pipeline_pushdown_equals_filter_then_join():
+    """The hash path pushes the filter down into the join (`probe_keep`);
+    the result equals a materialized filter followed by the join and the
+    aggregate — query.py's fusion decision."""
+    from tpq.ops import filter_table, hash_aggregate, hash_join
 
-    from tpq.kernels.lane2 import lane2_hash_join
-    from tpq.ops.filter import filter_table
-
-    dim = Table.from_numpy(datagen.gen_relation_np(512, 512, payloads=1, seed=5))
-    fact = Table.from_numpy(datagen.gen_relation_np(4096, 512, payloads=2, seed=6))
-    keep = fact.col("key") < jnp.asarray(300, fact.col("key").dtype)
-
-    fused = lane2_hash_join(dim, fact, 1 << 13, probe_keep=keep)
-    staged = lane2_hash_join(dim, filter_table(fact, "key", "lt", 300), 1 << 13)
-    assert_tables_equal(canonicalize(fused), canonicalize(staged),
-                        "lane_pushdown")
-
-
-def test_pipeline_lane_impl_matches_sorted():
-    """full_pipeline with the lane join (pushdown path) == sorted join
-    (materializing path) — exercises query.py's fusion decision."""
     dim = Table.from_numpy(datagen.gen_relation_np(512, 512, payloads=1, seed=7))
     fact = Table.from_numpy(datagen.gen_relation_np(4096, 512, payloads=2, seed=8))
-    a = full_pipeline(dim, fact, "key", "lt", 200, out_capacity=1 << 13,
-                      algo="hash", join_impl="lane")
-    b = full_pipeline(dim, fact, "key", "lt", 200, out_capacity=1 << 13,
-                      algo="hash", join_impl="sorted")
-    assert_tables_equal(canonicalize(a), canonicalize(b), "pipeline_lane")
+    fused = full_pipeline(dim, fact, "key", "lt", 200, out_capacity=1 << 13,
+                          algo="hash")
+    staged = hash_aggregate(hash_join(dim, filter_table(fact, "key", "lt", 200),
+                                      1 << 13))
+    assert_tables_equal(canonicalize(fused), canonicalize(staged),
+                        "pipeline_pushdown")
 
 
 def test_jit_pipeline_is_one_program(oracle, tmp_path):

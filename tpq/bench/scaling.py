@@ -3,10 +3,9 @@ weak-scaling efficiency at N>=2 hosts", L11 config 5).
 
 Runs the distributed hash join over meshes of 1..N chips with the
 per-chip row count held fixed (weak scaling), and reports rows/s/chip
-plus efficiency relative to N=1. On this box the mesh is the 8-device
-simulated CPU mesh (SURVEY.md §4.3) or the single real chip; on a real
-pod slice the identical code path runs after `tpq.dist.multihost.init`
-— mesh size is the only difference.
+plus efficiency relative to N=1. The mesh is whatever `jax.devices()`
+holds: the cards of one host, or every host after
+`tpq.dist.multihost.init` — mesh size is the only difference.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ import numpy as np
 import jax
 
 from tpq import datagen
-from tpq.bench.timing import slope_time
+from tpq.bench.timing import time_call
 from tpq.columnar import next_pow2
 from tpq.dist.dist_join import DistTable, dist_hash_join
 from tpq.dist.mesh import make_mesh
@@ -60,7 +59,7 @@ def run_weak_scaling(rows_per_chip: int = 1 << 16,
         args = (R.columns, R.shard_rows, S.columns, S.shard_rows)
         _, _, ovf = jfn(*args)  # compile + overflow check
         assert int(np.asarray(ovf).sum()) == 0, "scaling bench overflowed"
-        sec, _ = slope_time(jfn, args, reps=2)
+        sec, _, _ = time_call(jfn, args, warmup=1, iters=5)
         rate_per_chip = total / sec / n
         if base_rate is None:
             base_rate = rate_per_chip

@@ -8,7 +8,7 @@ num_rows, never by sentinel values.
 
 Descends from the reference's relation structs (benchmark relations of
 int64 keys + payload columns, BASELINE.json:L7-L8); redesigned as SoA
-columns because TPU/XLA wants contiguous per-column vectors, not
+columns because XLA wants contiguous per-column vectors, not
 array-of-struct rows.
 """
 
@@ -154,7 +154,11 @@ def canonicalize(table: Table) -> dict[str, np.ndarray]:
     insertion order (first column = primary). Byte-equality of this form is
     the bit-exactness contract vs the C++ oracle (oracle/join.cc emits the
     same ordering)."""
-    cols = table.to_numpy()
+    return canonical_order(table.to_numpy())
+
+
+def canonical_order(cols: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Host columns sorted lexicographically by columns in insertion order."""
     names = list(cols.keys())
     if names:
         # np.lexsort: last key is primary -> reverse

@@ -28,15 +28,10 @@ class RelationSpec:
 
 @dataclass(frozen=True)
 class JoinConfig:
-    """Hash-join planning knobs (C6/C4/C3)."""
+    """Join planning knobs."""
 
     algo: str = "hash"  # hash | merge
-    impl: str = "lane"  # lane (compiled table kernels) | sorted | rh
     out_capacity_factor: float = 4.0  # x max(|R|,|S|) static output slack
-    partition_bits: int | None = None  # None = planned from VMEM budget
-    vmem_budget_bytes: int = 96 * 1024 * 1024
-    table_load_factor: float = 0.5
-    max_displacement: int = 16
 
 
 @dataclass(frozen=True)
@@ -86,17 +81,12 @@ _register(_c(
 # that no engine (the reference included) could materialize, so the
 # benchable reading of L9 keeps the build side uniform and puts the
 # theta=1.0 skew where it stresses the engine: the probe partitions and
-# the exchange. The hot probe partition overflows the lane plan's
-# static caps, exercising the L5-named "sort-merge fallback for
-# high-skew keys" (the bench row is labeled with the fallback).
+# the exchange.
 _register(_c(
     "zipf_skew",
     r=RelationSpec(rows=1 << 20, nkeys=1 << 20, payloads=1, seed=1),
     s=RelationSpec(rows=1 << 20, nkeys=1 << 20, payloads=1, seed=2, kind="zipf"),
-    # impl="skew": single-chip heavy-hitter split (tpq/ops/skew_join.py) —
-    # heavy keys ride a broadcast mini-table, the ~uniform residual rides
-    # the compiled lane path (VERDICT r3 item 5; BASELINE.json:L9)
-    join=JoinConfig(impl="skew", out_capacity_factor=4.0),
+    join=JoinConfig(out_capacity_factor=4.0),
 ))
 
 # config 4 — full pipeline: filter -> hash join -> hash aggregate, 100M fact
@@ -109,12 +99,13 @@ _register(_c(
     join=JoinConfig(out_capacity_factor=1.0),
 ))
 
-# config 5 — distributed join, 1B x 1B over N hosts (mesh shape set by driver)
+# config 5 — distributed join, 1B x 1B over the four cards of one host
+# (all to all over NVLink, so the mesh is 1-D)
 _register(_c(
     "dist_1b",
     r=RelationSpec(rows=1_000_000_000, nkeys=1_000_000_000, payloads=1, seed=1),
     s=RelationSpec(rows=1_000_000_000, nkeys=1_000_000_000, payloads=1, seed=2),
-    mesh_shape=(8,),
+    mesh_shape=(4,),
 ))
 
 # smoke-scale twins (1/1000 scale, SURVEY.md §4.5)

@@ -1,6 +1,6 @@
 """L4 distributed: mesh placement, shuffle exchange, skew handling,
 distributed join (SURVEY.md §2.2 D1-D5). The reference is single-node
-shared-memory; everything here is new TPU-native scope mandated by
+shared-memory; everything here is new scope mandated by
 BASELINE.json:L5,L11."""
 
 from tpq.dist.mesh import make_mesh, owner_of  # noqa: F401

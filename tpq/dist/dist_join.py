@@ -14,7 +14,7 @@ arrays sharded P('x') on the row axis, plus a per-shard row-count vector
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import partial
+from functools import lru_cache, partial
 
 import jax
 import jax.numpy as jnp
@@ -90,7 +90,7 @@ class DistTable:
 
 def _local_join(algo: str, r: Table, s: Table, cap: int, key: str) -> Table:
     if algo == "hash":
-        return hash_join(r, s, cap, key=key, impl="sorted")
+        return hash_join(r, s, cap, key=key)
     return merge_join(r, s, cap, key=key)
 
 
@@ -105,32 +105,35 @@ def dist_hash_join(
     key: str = "key",
     skew: SkewConfig | None = None,
     n_chunks: int = 1,
-    local_impl: str = "sorted",
-    lane_depth: int = 48,
 ) -> tuple[DistTable, jax.Array]:
     """Distributed inner equi-join. Returns (row-sharded result,
     overflow counts int32[nchips] — nonzero means a shard's exchange
     bucket, skew replica, or join output overflowed and capacities must
-    be renegotiated (SURVEY.md §5.3)).
-
-    local_impl="lane" uses the compiled lane-bucket kernels inside the
-    shard_map body with the build-once/probe-many split: R's table is
-    built ONCE per shard after its exchange and probed per ring hop /
-    chunk (VERDICT r2 item 3 — hop-loop cost no longer scales with
-    nchips x build). Lane static-capacity violations count as overflow
-    (renegotiation re-runs with larger capacities; heavy skew should
-    divert through `skew` first). Requires algo="hash"."""
+    be renegotiated (SURVEY.md §5.3))."""
     nchips = mesh.devices.size
     ex_cap = exchange_capacity or max(128, next_pow2(2 * r.local_capacity // max(1, nchips) * 2))
     assert out_capacity_per_shard % n_chunks == 0
-    use_lane = algo == "hash" and local_impl == "lane"
-    if local_impl not in ("sorted", "lane"):
-        raise ValueError(f"unknown local_impl {local_impl!r}")
+    program = _dist_join_program(mesh, tuple(r.columns), tuple(s.columns),
+                                 out_capacity_per_shard, ex_cap, algo,
+                                 exchange_impl, key, skew, n_chunks)
+    out_cols, out_counts, overflow = program(
+        r.columns, r.shard_rows, s.columns, s.shard_rows)
+    return DistTable(out_cols, out_counts), overflow
 
-    r_spec = {n: P(AXIS) for n in r.columns}
-    s_spec = {n: P(AXIS) for n in s.columns}
-    out_names = [key] + [f"r_{n}" for n in r.columns if n != key] \
-        + [f"s_{n}" for n in s.columns if n != key]
+
+@lru_cache(maxsize=16)
+def _dist_join_program(mesh: Mesh, r_names: tuple, s_names: tuple,
+                       out_capacity_per_shard: int, ex_cap: int, algo: str,
+                       exchange_impl: str, key: str, skew: SkewConfig | None,
+                       n_chunks: int):
+    """The jitted shard_map body of dist_hash_join, one per static
+    configuration (an eager shard_map would dispatch it op by op, and a
+    fresh jit per call would retrace it every time)."""
+    nchips = mesh.devices.size
+    r_spec = {n: P(AXIS) for n in r_names}
+    s_spec = {n: P(AXIS) for n in s_names}
+    out_names = [key] + [f"r_{n}" for n in r_names if n != key] \
+        + [f"s_{n}" for n in s_names if n != key]
     out_spec = {n: P(AXIS) for n in out_names}
 
     @partial(
@@ -138,10 +141,6 @@ def dist_hash_join(
         mesh=mesh,
         in_specs=(r_spec, P(AXIS), s_spec, P(AXIS)),
         out_specs=(out_spec, P(AXIS), P(AXIS)),
-        # pallas_call outputs carry no varying-axis annotations; the lane
-        # kernels are per-shard local compute, so the static vma check is
-        # disabled for them (collective semantics are unaffected)
-        check_vma=not use_lane,
     )
     def body(r_cols, r_n, s_cols, s_n):
         R = Table(r_cols, r_n[0])
@@ -175,32 +174,6 @@ def dist_hash_join(
                              impl="dense" if exchange_impl == "ring" else exchange_impl)
         overflow += r_ovf
 
-        if use_lane:
-            # build ONCE per shard; every hop/chunk below only probes
-            from tpq.kernels.lane2 import (build_lane2_tables,
-                                           lane2_probe_emit, plan_lane2)
-
-            probe_cap_in = ex_cap if exchange_impl == "ring" else nchips * ex_cap
-            # lane_depth is a renegotiable static capacity: un-split heavy
-            # build keys overflow bucket depth, which no amount of output/
-            # exchange capacity can absorb (dryrun regression, r4)
-            lane_plan = plan_lane2(R2.capacity, probe_cap_in,
-                                   depth=lane_depth,
-                                   out_capacity=out_capacity_per_shard)
-            lane_tables = build_lane2_tables(R2, lane_plan, key)
-            lane_rnames = [n for n in R2.names if n != key]
-            lane_rdtypes = [R2.col(n).dtype for n in lane_rnames]
-
-        def light_join(S2: Table, cap: int) -> Table:
-            """Per-hop/chunk local join; lane violations count as overflow
-            (num_rows stays the true total, so the overflow arithmetic of
-            the callers below keeps working)."""
-            if use_lane:
-                out_c, ok = lane2_probe_emit(lane_tables, S2, cap, key,
-                                             lane_rnames, lane_rdtypes)
-                return out_c, (~ok).astype(jnp.int32)
-            return _local_join(algo, R2, S2, cap, key), jnp.int32(0)
-
         outs = []
         if exchange_impl == "ring":
             # Hop-pipelined ring (D3 proper): S arrives one ring hop at a
@@ -210,8 +183,7 @@ def dist_hash_join(
             dc = jnp.where(S.valid_mask(), dest_s, nchips)
             for S2, hop_ovf in ring_hops(S, dc, AXIS, nchips, ex_cap):
                 overflow += hop_ovf
-                out_c, lane_ovf = light_join(S2, hop_cap)
-                overflow += lane_ovf
+                out_c = _local_join(algo, R2, S2, hop_cap, key)
                 overflow += (out_c.num_rows > out_c.capacity).astype(jnp.int32)
                 out_c = Table(out_c.columns, jnp.minimum(out_c.num_rows, out_c.capacity))
                 outs.append(out_c)
@@ -226,9 +198,9 @@ def dist_hash_join(
                 dc = jnp.where(jnp.arange(Sc.capacity) < Sc.num_rows, Dc.col("d"), nchips)
                 S2, s_ovf = exchange(Sc, dc, AXIS, nchips, ex_cap, impl=exchange_impl)
                 overflow += s_ovf
-                out_c, lane_ovf = light_join(
-                    S2, chunk_cap if n_chunks > 1 else out_capacity_per_shard)
-                overflow += lane_ovf
+                out_c = _local_join(
+                    algo, R2, S2,
+                    chunk_cap if n_chunks > 1 else out_capacity_per_shard, key)
                 overflow += (out_c.num_rows > out_c.capacity).astype(jnp.int32)
                 out_c = Table(out_c.columns, jnp.minimum(out_c.num_rows, out_c.capacity))
                 outs.append(out_c)
@@ -250,8 +222,7 @@ def dist_hash_join(
         n_out = jnp.minimum(out.num_rows, out_capacity_per_shard)[None]
         return dict(out.columns), n_out.astype(jnp.int32), (overflow + out_overflow)[None]
 
-    out_cols, out_counts, overflow = body(r.columns, r.shard_rows, s.columns, s.shard_rows)
-    return DistTable(out_cols, out_counts), overflow
+    return jax.jit(body)
 
 
 def plan_dist_capacities(
@@ -266,8 +237,8 @@ def plan_dist_capacities(
     already computes, not from the local_capacity guess).
 
     Two cheap jitted passes over KEYS ONLY:
-      1. per-(sender, destination) row counts via `radix_histogram` (C3's
-         Pallas one-hot-matmul kernel) -> exchange bucket capacity =
+      1. per-(sender, destination) row counts via `radix_histogram` (C3)
+         -> exchange bucket capacity =
          max over senders+destinations;
       2. a keys-only exchange at that capacity, then the exact per-owner
          join cardinality sum_k cnt_R(k)*cnt_S(k) (sorted counts, no
@@ -279,23 +250,22 @@ def plan_dist_capacities(
     from tpq.dist.skew import _count_keys_in
 
     nchips = mesh.devices.size
-    interpret = jax.default_backend() == "cpu"
 
     @partial(shard_map, mesh=mesh,
              in_specs=(P(AXIS), P(AXIS), P(AXIS), P(AXIS)),
-             out_specs=P(AXIS), check_vma=False)
+             out_specs=P(AXIS))
     def count_pass(rk, r_n, sk, s_n):
         out = []
         for k, n in ((rk, r_n), (sk, s_n)):
             valid = jnp.arange(k.shape[0], dtype=jnp.int32) < n[0]
             dest = jnp.where(valid, owner_of(k, nchips), nchips)
             # histogram over nchips+1 slots; the sentinel slot absorbs padding
-            hist = radix_histogram(dest, nchips + 1, interpret=interpret)
+            hist = radix_histogram(dest, nchips + 1)
             out.append(jnp.max(hist[:nchips]))
         m = jnp.maximum(out[0], out[1])
         return jax.lax.pmax(m, AXIS)[None]
 
-    per_bucket = int(np.asarray(count_pass(
+    per_bucket = int(np.asarray(jax.jit(count_pass)(
         r.columns[key], r.shard_rows, s.columns[key], s.shard_rows))[0])
     ex_cap = next_pow2(max(128, int(per_bucket * safety)))
 
@@ -321,7 +291,7 @@ def plan_dist_capacities(
         total = jnp.maximum(total, (r_ovf + s_ovf).astype(jnp.int64))
         return jax.lax.pmax(total, AXIS)[None]
 
-    per_out = int(np.asarray(cardinality_pass(
+    per_out = int(np.asarray(jax.jit(cardinality_pass)(
         r.columns[key], r.shard_rows, s.columns[key], s.shard_rows))[0])
     out_cap = next_pow2(max(256, int(per_out * safety)))
     return ex_cap, out_cap
@@ -369,9 +339,6 @@ def dist_hash_join_renegotiated(
         out_cap *= 2
         if ex_cap is not None:
             ex_cap *= 2
-        # every static capacity grows, including the lane bucket depth —
-        # a heavy un-split build key overflows depth, not output space
-        kwargs["lane_depth"] = (kwargs.get("lane_depth", 48) * 3 + 1) // 2
         if skew is not None:
             kwargs["skew"] = skew = SkewConfig(
                 candidates_per_shard=skew.candidates_per_shard,

@@ -1,15 +1,16 @@
 """D2 — distributed shuffle exchange (SURVEY.md §2.2 D2).
 
-The communication backend: on TPU the NCCL/MPI all-to-all of a CPU/GPU
-engine is replaced by XLA collectives over ICI (intra-slice) / DCN
-(cross-slice), reached through `shard_map` — BASELINE.json:L5
-"distributed shuffle exchange (ragged all-to-all over ICI)".
+The communication backend is XLA's collective set, reached through
+`shard_map` (XLA hands it to NCCL over NVLink on the GPU) —
+BASELINE.json:L5 "distributed shuffle exchange".
 
-Fallback ladder (SURVEY.md §5.8), all semantically identical:
-  1. `ragged_all_to_all` — exact row counts on the wire;
-  2. dense `all_to_all` with per-destination padding (this module's
-     default: always available, static shapes everywhere);
-  3. `ppermute` ring — the overlap-friendly variant (D3).
+Two semantically identical forms (SURVEY.md §5.8 ladder):
+  * dense `all_to_all` with per-destination padding (the default;
+    static shapes everywhere);
+  * `ppermute` ring — the overlap-friendly variant (D3).
+The ladder's `ragged_all_to_all` rung is not here: on four H100s it
+lowered but repeated calls of one compiled program disagreed
+(ROADMAP, "Where things stand").
 
 All functions here run INSIDE a shard_map body: arrays are the local
 shard, `axis` is the mesh axis name.
@@ -74,48 +75,10 @@ def exchange_dense(table: Table, dest: jnp.ndarray, axis: str, nchips: int,
     return compact(received, valid), overflow
 
 
-def exchange_ragged(table: Table, dest: jnp.ndarray, axis: str, nchips: int,
-                    bucket_capacity: int):
-    """`jax.lax.ragged_all_to_all` exchange — only real row bytes cross ICI.
-
-    Offsets bookkeeping: each sender needs its write offset in every
-    receiver's buffer; that is the exclusive scan over senders of the
-    transposed size matrix, obtained with one dense all_to_all of the
-    counts vector (SURVEY.md §2.2 D2).
-    """
-    from tpq.ops.union_join import col_planes, planes_col
-
-    bucketed, counts, overflow = bucket_by_dest(table, dest, nchips, bucket_capacity)
-    input_offsets = (jnp.arange(nchips, dtype=jnp.int32) * bucket_capacity)
-    send_sizes = counts
-    # sizes each peer will send me:
-    recv_sizes = jax.lax.all_to_all(counts, axis, split_axis=0, concat_axis=0, tiled=True)
-    # my write offsets on each receiver = exclusive-scan over senders there:
-    my_offsets_there = jax.lax.all_to_all(exclusive_cumsum(recv_sizes), axis,
-                                          split_axis=0, concat_axis=0, tiled=True)
-    out_cap = nchips * bucket_capacity
-    recv_cols = {}
-    for name, col in bucketed.items():
-        # ship 32-bit planes: XLA's x64-rewrite pass has no rule for a
-        # 64-bit ragged-all-to-all (verified on the v5e AOT compiler:
-        # "rewriting is not implemented ... ragged-all-to-all s64") and
-        # the wire bytes are identical either way
-        planes = col_planes(col)
-        moved = []
-        for p in planes:
-            out_buf = jnp.zeros(out_cap, p.dtype)
-            moved.append(jax.lax.ragged_all_to_all(
-                p, out_buf, input_offsets, send_sizes,
-                my_offsets_there, recv_sizes, axis_name=axis))
-        recv_cols[name] = planes_col(tuple(moved), col.dtype)
-    total = jnp.sum(recv_sizes).astype(jnp.int32)
-    return Table(recv_cols, total), overflow
-
-
 def ring_hops(table: Table, dest: jnp.ndarray, axis: str, nchips: int,
               bucket_capacity: int):
-    """`ppermute`-ring exchange, hop by hop — ladder rung 3 (SURVEY.md
-    §5.8), the overlap-friendly variant: hop t moves exactly the rows
+    """`ppermute`-ring exchange, hop by hop (SURVEY.md §5.8), the
+    overlap-friendly variant: hop t moves exactly the rows
     that are t ring-steps from home, so a consumer can join hop t-1's
     rows while hop t is on the wire (D3's structural overlap — the
     ring-attention communication skeleton applied to join state,
@@ -173,8 +136,6 @@ def exchange(table: Table, dest: jnp.ndarray, axis: str, nchips: int,
              bucket_capacity: int, impl: str = "dense"):
     if impl == "dense":
         return exchange_dense(table, dest, axis, nchips, bucket_capacity)
-    if impl == "ragged":
-        return exchange_ragged(table, dest, axis, nchips, bucket_capacity)
     if impl == "ring":
         return exchange_ring(table, dest, axis, nchips, bucket_capacity)
     raise ValueError(f"unknown exchange impl {impl!r}")

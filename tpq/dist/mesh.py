@@ -5,10 +5,11 @@ owner(key) = hash(key) mod nchips, with a dedicated salt so the owner
 mapping is independent of the radix-partition and table-slot hashes
 (C2's hash-family parameterization).
 
-On TPU the communication backend IS the XLA collective set over ICI/DCN
-reached through shard_map on this mesh — no NCCL/MPI analog exists or is
-needed (SURVEY.md §5.8). Multi-host: `jax.distributed.initialize` per
-host changes only `jax.devices()`; mesh construction is identical.
+The communication backend IS the XLA collective set reached through
+shard_map on this mesh (SURVEY.md §5.8). The cards of one host are
+joined all to all, so the mesh is 1-D and follows the algorithm.
+Multi-host: `jax.distributed.initialize` per host changes only
+`jax.devices()`; mesh construction is identical.
 """
 
 from __future__ import annotations

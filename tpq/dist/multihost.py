@@ -1,15 +1,14 @@
 """Multi-host wiring (SURVEY.md §4.3, §5.8; BASELINE.json:L11 config 5).
 
-On a real pod slice each host runs one Python process; calling
-`init()` (or relying on TPU env auto-detection) wires them into one
-JAX runtime, after which `jax.devices()` spans the slice and every
-mesh/shard_map/collective in tpq works unchanged — mesh size is the
-ONLY difference between the 8-device simulated run and an N-host run.
+On a multi-host cluster each host runs one Python process; calling
+`init()` wires them into one JAX runtime, after which `jax.devices()`
+spans every host and every mesh/shard_map/collective in tpq works
+unchanged — mesh size is the ONLY difference between the 8-device
+simulated run and an N-host run.
 
-This box has a single chip, so init() here is exercised only in its
-no-op single-process form; the env-driven arguments follow the standard
-jax.distributed contract (coordinator_address, num_processes,
-process_id) so a slice launch is a config change, not a code change.
+Nothing tells JAX of a cluster on its own: the coordinator address,
+process count and process id follow the standard jax.distributed
+contract, so a multi-host launch is a config change, not a code change.
 """
 
 from __future__ import annotations
@@ -32,8 +31,6 @@ def init(coordinator_address: str | None = None,
     if process_id is None and "TPQ_PROCESS_ID" in os.environ:
         process_id = int(os.environ["TPQ_PROCESS_ID"])
     if coordinator_address is None and num_processes is None:
-        # TPU pod VMs can auto-detect everything; only attempt when the
-        # platform provides metadata, else stay single-process.
         return False
     jax.distributed.initialize(
         coordinator_address=coordinator_address,

@@ -1,9 +1,9 @@
 """C2 — SIMD-friendly multiplicative hashing (SURVEY.md §2.1 C2).
 
 The reference uses multiplicative (Fibonacci/Knuth) hashing on int64 keys
-(BASELINE.json:L5 "SIMD-friendly multiplicative hashing"). TPU v5e has no
-native 64-bit vector ALU, so the hot path hashes in 2xu32 lanes
-(SURVEY.md §7.4.4); a full-u64 path exists for host/x64 checks.
+(BASELINE.json:L5 "SIMD-friendly multiplicative hashing"). The hot path
+hashes in 2xu32 lanes (SURVEY.md §7.4.4); a full-u64 path exists for
+host/x64 checks.
 
 All hash functions take a `salt` so independent passes (radix partition
 levels, distributed owner mapping, table slots) decorrelate.
@@ -36,7 +36,7 @@ def hash_u64(keys: jnp.ndarray, bits: int, salt: int = 0) -> jnp.ndarray:
 def hash32_pair(lo: jnp.ndarray, hi: jnp.ndarray, salt: int = 0) -> jnp.ndarray:
     """Mix (lo, hi) u32 halves of an i64 key into one u32 hash.
 
-    Pure 32-bit ops — safe inside Pallas TPU kernels. murmur3-style
+    Pure 32-bit ops. murmur3-style
     finalizer over a golden-ratio combine; passes avalanche sanity tests
     (tests/test_hashing.py).
     """
@@ -53,7 +53,7 @@ def hash32_pair(lo: jnp.ndarray, hi: jnp.ndarray, salt: int = 0) -> jnp.ndarray:
 
 
 def split_i64(keys: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """i64 -> (lo_u32, hi_u32) as int32-bitpattern arrays (TPU-friendly)."""
+    """i64 -> (lo_u32, hi_u32) halves."""
     k = keys.astype(jnp.uint64)
     lo = (k & jnp.uint64(0xFFFFFFFF)).astype(jnp.uint32)
     hi = (k >> jnp.uint64(32)).astype(jnp.uint32)

@@ -1,2 +1,2 @@
-"""L2 kernels: radix partition, robin-hood table build/probe, radix sort
-(SURVEY.md §2.1 C3-C5). The only layer that knows about VMEM tiling."""
+"""L2 data movement: radix partition + histogram and the PAD/PACK movers
+(SURVEY.md §2.1 C3), all plain `jnp`/`lax` left to XLA."""

@@ -1,285 +1,55 @@
-"""PAD / PACK — Pallas HBM-rate layout movers (SURVEY.md §2.1 C3's
-"VMEM scatter fast path", realized for TPU as order-preserving movers;
-VERDICT r1 items 1-2: the machinery that removes XLA gather/scatter —
-measured ~10 ms/M and ~5 ms/M rows on v5e (scripts/tpu_r2_design.py) —
-from every hot layout change).
+"""PAD / PACK — order-preserving layout movers, in plain `jnp`.
 
-Two primitives, both built on the monotone shift network
-(tpq/kernels/shift_network.py) and verified Mosaic forms
-(scripts/tpu_r2_probe3.py):
-
-  * pad(planes, dest, out_len) — move row k of a COMPACT live prefix to
-    slot dest[k] (dest strictly increasing), inserting gaps. Grid over
-    OUTPUT tiles; each tile's sources are a contiguous input window
-    (dest monotone => window <= one tile), read with a dynamic-offset
-    DMA, aligned with a dynamic flat roll, expanded in-register.
+  * pad(planes, dest, n_live, out_len) — move row k of a COMPACT live
+    prefix to slot dest[k], inserting gaps: one scatter per plane plus an
+    occupancy scatter, with every dead or out-of-range row dropped.
 
   * pack(planes, occ) — compact live rows to the front, preserving
-    order. Sequential grid over INPUT tiles with a VMEM accumulator and
-    an SMEM row cursor: in-tile log-shift rank + pack route, merge with
-    the carried partial row, flush full rows with a dynamic-offset DMA
-    (the over-write trick: each flush writes the partial row too; the
-    next flush overwrites it at the same cursor).
+    order: an exclusive cumsum of `occ` gives each live row its slot, and
+    one scatter per plane moves it there. Slots past the live prefix are
+    zero.
 
-Both run compiled on TPU (pltpu.roll / DMA) and in interpret mode on
-CPU (jnp.roll twin) for the differential tests.
+Callers: `hash_aggregate` (PACK of the group rows) and the chunked
+config-4 accumulator in `tpq/bench/scale_bench.py` (PAD of each chunk's
+group table onto its key slots).
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from tpq.kernels.shift_network import flat_roll_right, route
 
 I32 = jnp.int32
-L = 128
-
-
-def _flat_roll_dyn(v: jnp.ndarray, c, mosaic: bool) -> jnp.ndarray:
-    """Flat roll toward higher indices by a TRACED amount c (>= 0)."""
-    rows = v.shape[0]
-    lane = jax.lax.broadcasted_iota(I32, v.shape, 1)
-    rowshift = c // L
-    laneshift = c % L
-    if mosaic:
-        r = pltpu.roll(v, laneshift, 1)
-        r0 = pltpu.roll(r, rowshift, 0)
-        r1 = pltpu.roll(r, rowshift + 1, 0)
-    else:
-        r = jnp.roll(v, laneshift, 1)
-        r0 = jnp.roll(r, rowshift, 0)
-        r1 = jnp.roll(r, (rowshift + 1) % rows, 0)
-    return jnp.where(lane < laneshift, r1, r0)
-
-
-def _flat_iota(shape) -> jnp.ndarray:
-    return (jax.lax.broadcasted_iota(I32, shape, 0) * shape[1]
-            + jax.lax.broadcasted_iota(I32, shape, 1))
-
-
-def _flat_cumsum_excl(v: jnp.ndarray, mosaic: bool) -> jnp.ndarray:
-    """Exclusive flat cumsum via log-shift adds (in-kernel safe)."""
-    acc = v
-    flat = _flat_iota(v.shape)
-    sh = 1
-    n = v.shape[0] * v.shape[1]
-    while sh < n:
-        r = flat_roll_right(acc, sh, mosaic=mosaic)
-        acc = acc + jnp.where(flat >= sh, r, 0)
-        sh *= 2
-    return acc - v
-
-
-# ---------------------------------------------------------------------------
-# PAD
-# ---------------------------------------------------------------------------
-
-def _pad_kernel(nplanes: int, rows: int, mosaic: bool, starts_ref, *refs):
-    # refs: nplanes data planes + dest (ANY), then nplanes+1 out blocks,
-    # then scratch: nplanes+1 VMEM windows + DMA sem array
-    W = rows + 8  # Mosaic needs 8-row (sublane) alignment
-    ins = refs[:nplanes + 1]
-    outs = refs[nplanes + 1:2 * nplanes + 2]
-    wins = refs[2 * nplanes + 2:3 * nplanes + 3]
-    sem = refs[3 * nplanes + 3]
-    t = pl.program_id(0)
-    s0 = starts_ref[t]
-    n_in = starts_ref[t + 1] - s0
-    row0 = s0 // L
-    off = s0 - row0 * L
-
-    copies = []
-    for i, (src, dst) in enumerate(zip(ins, wins)):
-        c = pltpu.make_async_copy(src.at[pl.ds(row0, W), :], dst, sem.at[i])
-        c.start()
-        copies.append(c)
-    for c in copies:
-        c.wait()
-
-    nflat = W * L
-    planes = [_flat_roll_dyn(w[:], nflat - off, mosaic) for w in wins[:nplanes]]
-    dest_w = _flat_roll_dyn(wins[nplanes][:], nflat - off, mosaic)
-
-    flat = _flat_iota((W, L))
-    occ = (flat < n_in).astype(I32)
-    shift = (dest_w - t * (rows * L) - flat) * occ
-    moved, occ2 = route(planes, occ, shift, "expand", mosaic=mosaic)
-    for o, m in zip(outs[:nplanes], moved):
-        o[0] = m[:rows]
-    outs[nplanes][0] = occ2[:rows]
 
 
 def pad(planes: list[jnp.ndarray], dest: jnp.ndarray, n_live,
-        out_len: int, rows: int = 32, interpret: bool = False):
+        out_len: int):
     """Place row k (k < n_live) of each compact plane at slot dest[k].
 
-    planes: 1-D i32 arrays, equal length N >= n_live. dest: i32[N],
-    strictly increasing and in [0, out_len) for the live prefix
-    (caller's contract; live dests beyond out_len must be pre-clamped
-    to a sentinel >= out_len and count as overflow upstream).
-    Returns ([out_len] planes, occ[out_len] 0/1).
+    planes: 1-D arrays, equal length N >= n_live. dest: int[N], strictly
+    increasing and in [0, out_len) over the live prefix (caller's
+    contract; live dests outside [0, out_len) are dropped and must be
+    counted as overflow upstream). Rows k >= n_live are ignored.
+    Returns ([out_len] planes, occ int32[out_len] 0/1).
     """
-    if interpret is False and jax.default_backend() == "cpu":
-        interpret = True
-    T = rows * L
-    # sub-tile out_len: run the kernel on the next full-tile length and
-    # slice back — live dests are < out_len by contract, so the rounded
-    # tail only ever holds occ=0 padding
-    out_pad = ((out_len + T - 1) // T) * T
-    ntiles = out_pad // T
     n = planes[0].shape[0]
-
-    k = jnp.arange(n, dtype=I32)
-    dest_eff = jnp.where((k < n_live) & (dest.astype(I32) < out_len),
-                         dest.astype(I32), out_pad)
-    # per-output-tile input starts: dest is monotone over the live prefix,
-    # so starts = binary search of the tile boundaries (ntiles tiny
-    # queries — NOT a scatter/histogram over N, which XLA:TPU serializes:
-    # the segment_sum variant measured 12 ms at 2M rows)
-    bounds = jnp.arange(ntiles + 1, dtype=I32) * T
-    starts = jnp.searchsorted(dest_eff, bounds, side="left").astype(I32)
-
-    # pad inputs with a window of slack rows so the last tile's DMA stays
-    # in bounds
-    pad_rows = rows + 8
-    n_rows = (n + L - 1) // L
-
-    def as2d(p):
-        flat = jnp.zeros(((n_rows + pad_rows) * L,), I32)
-        flat = flat.at[:n].set(p.astype(I32))
-        return flat.reshape(-1, L)
-
-    ops2d = [as2d(p) for p in planes] + [as2d(dest_eff)]
-
-    kern = functools.partial(_pad_kernel, len(planes), rows, not interpret)
-    gs = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1, grid=(ntiles,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)] * (len(planes) + 1),
-        out_specs=[pl.BlockSpec((1, rows, L), lambda t, s: (t, 0, 0),
-                                memory_space=pltpu.VMEM)] * (len(planes) + 1),
-        scratch_shapes=[pltpu.VMEM((rows + 8, L), I32)] * (len(planes) + 1)
-        + [pltpu.SemaphoreType.DMA((len(planes) + 1,))])
-    call = pl.pallas_call(
-        kern, grid_spec=gs,
-        out_shape=[jax.ShapeDtypeStruct((ntiles, rows, L), I32)]
-        * (len(planes) + 1),
-        interpret=interpret)
-
-    with jax.enable_x64(False):
-        outs = call(starts, *ops2d)
-    flat_outs = [o.reshape(out_pad)[:out_len] for o in outs]
-    return flat_outs[:-1], flat_outs[-1]
+    d = dest.astype(I32)
+    live = (jnp.arange(n, dtype=I32) < n_live) & (d >= 0) & (d < out_len)
+    idx = jnp.where(live, d, out_len)
+    outs = [jnp.zeros(out_len, p.dtype).at[idx].set(p, mode="drop")
+            for p in planes]
+    occ = jnp.zeros(out_len, I32).at[idx].set(1, mode="drop")
+    return outs, occ
 
 
-# ---------------------------------------------------------------------------
-# PACK
-# ---------------------------------------------------------------------------
-
-def _pack_kernel(nplanes: int, rows: int, mosaic: bool, occ_ref, *refs):
-    W = rows + 8  # Mosaic needs 8-row (sublane) alignment
-    ins = refs[:nplanes]
-    outs = refs[nplanes:2 * nplanes]
-    cur = refs[2 * nplanes]
-    accs = refs[2 * nplanes + 1]
-    sem = refs[2 * nplanes + 2]
-    t = pl.program_id(0)
-
-    @pl.when(t == 0)
-    def _():
-        cur[0] = 0
-        cur[1] = 0
-        accs[:] = jnp.zeros_like(accs)
-
-    occ = occ_ref[0]
-    flat = _flat_iota(occ.shape)
-    rank = _flat_cumsum_excl(occ, mosaic)
-    # Mosaic lowers integer reductions through an i64 proxy (unsupported on
-    # v5e); an f32 accumulator is exact for tile counts < 2^24
-    cnt = jnp.sum(occ.astype(jnp.float32)).astype(I32)
-    shift = (flat - rank) * occ
-    moved, _ = route([r[0] for r in ins], occ, shift, "pack", mosaic=mosaic)
-
-    alen = cur[1]
-    total_now = alen + cnt
-    full = total_now // L
-    newlen = total_now - full * L
-    zrows = jnp.zeros((8, L), I32)
-    for i in range(nplanes):
-        buf = jnp.concatenate([moved[i], zrows], axis=0)  # (W, L)
-        buf = _flat_roll_dyn(buf, alen, mosaic)           # no wrap: cnt+alen < W*L
-        carry = accs[i * W, :][None, :]
-        buf = jnp.concatenate([buf[0:1] + carry, buf[1:]], axis=0)
-        accs[i * W:(i + 1) * W, :] = buf
-    c = cur[0]
-    copies = []
-    for i in range(nplanes):
-        d = pltpu.make_async_copy(accs.at[pl.ds(i * W, W), :],
-                                  outs[i].at[pl.ds(c, W), :], sem.at[i])
-        d.start()
-        copies.append(d)
-    for d in copies:
-        d.wait()
-    # retain only the new partial row at acc row 0, zero elsewhere
-    rowi = jax.lax.broadcasted_iota(I32, (W, L), 0)
-    lanei = jax.lax.broadcasted_iota(I32, (W, L), 1)
-    keep = (rowi == 0) & (lanei < newlen)
-    for i in range(nplanes):
-        w = accs[i * W:(i + 1) * W, :]
-        if mosaic:
-            w = pltpu.roll(w, W - full, 0)
-        else:
-            w = jnp.roll(w, W - full, 0)
-        accs[i * W:(i + 1) * W, :] = jnp.where(keep, w, 0)
-    cur[0] = c + full
-    cur[1] = newlen
-
-
-def pack(planes: list[jnp.ndarray], occ: jnp.ndarray, rows: int = 32,
-         interpret: bool = False):
+def pack(planes: list[jnp.ndarray], occ: jnp.ndarray):
     """Compact live rows (occ != 0) of each plane to the front, order
     preserved. Returns ([N] planes zero-padded after the live prefix,
-    total int32). Runs one sequential pass at DMA rate."""
-    if interpret is False and jax.default_backend() == "cpu":
-        interpret = True
+    total int32)."""
     n = planes[0].shape[0]
-    T = rows * L
-    n_pad = ((n + T - 1) // T) * T
-    ntiles = n_pad // T
-
-    def as3d(p, fill=0):
-        flat = jnp.full((n_pad,), fill, I32)
-        flat = flat.at[:n].set(p.astype(I32))
-        return flat.reshape(ntiles, rows, L)
-
-    occ3 = as3d(occ.astype(I32))
-    ops3 = [as3d(p) for p in planes]
-    total = jnp.sum(occ.astype(I32))
-
-    kern = functools.partial(_pack_kernel, len(planes), rows, not interpret)
-    bspec = pl.BlockSpec((1, rows, L), lambda t: (t, 0, 0),
-                         memory_space=pltpu.VMEM)
-    out_rows = ntiles * rows + rows + 8
-    call = pl.pallas_call(
-        kern, grid=(ntiles,),
-        in_specs=[bspec] * (1 + len(planes)),
-        out_specs=[pl.BlockSpec(memory_space=pl.ANY)] * len(planes),
-        out_shape=[jax.ShapeDtypeStruct((out_rows, L), I32)] * len(planes),
-        scratch_shapes=[pltpu.SMEM((2,), I32),
-                        pltpu.VMEM((len(planes) * (rows + 8), L), I32),
-                        pltpu.SemaphoreType.DMA((len(planes),))],
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
-        interpret=interpret)
-    with jax.enable_x64(False):
-        outs = call(occ3, *ops3)
-    flat_outs = [o.reshape(-1)[:n] for o in outs]
-    # rows beyond the final flush were never written: zero them so the
-    # engine's padding-determinism contract holds
-    idx = jnp.arange(n, dtype=I32)
-    live = idx < total
-    flat_outs = [jnp.where(live, p, 0) for p in flat_outs]
-    return flat_outs, total
+    keep = occ != 0
+    k = keep.astype(I32)
+    slot = jnp.cumsum(k, dtype=I32) - k
+    idx = jnp.where(keep, slot, n)
+    outs = [jnp.zeros(n, p.dtype).at[idx].set(p, mode="drop")
+            for p in planes]
+    return outs, jnp.sum(k, dtype=I32)

@@ -4,63 +4,29 @@ per-partition planes (SURVEY.md §2.1 C3; BASELINE.json:L5
 
 Two pieces:
 
-  * `radix_histogram` — Pallas kernel: per-tile bucket histogram via
-    one-hot matmul (the MXU turns counting into a [tile, nbuckets]
-    one-hot contraction; SURVEY.md §7.4.2 lists this as the candidate
-    design), accumulated across grid steps in a VMEM-resident output
-    block. Used for partition planning, exchange sizing, and skew stats
-    without materializing any reorder.
+  * `radix_histogram` — per-bucket row counts (`segment_sum` of ones),
+    for partition planning, exchange sizing and skew stats without
+    materializing any reorder.
 
   * `partition_padded` — stable reorder of rows into a [npart, part_cap]
-    padded layout. Realization is the measured-fast path on TPU: one
-    stable multi-operand `lax.sort` by bucket + searchsorted starts +
-    2-D gather (scripts/tpu_prims.py: 2M-row stable sort = 0.3 ms while
-    a general scatter serializes; SURVEY.md §7.3.4 sort-based-twin rule).
-    This is the building block under the robin-hood join (C4) and the
-    shuffle exchange bucketing (D2).
+    padded layout: one stable multi-operand `lax.sort` by bucket +
+    searchsorted starts + 2-D gather. This is the building block under
+    the shuffle exchange bucketing (D2).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 I32 = jnp.int32
 
 
-def _hist_kernel(nbuckets: int, bucket_ref, out_ref):
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        out_ref[:] = jnp.zeros_like(out_ref)
-
-    b = bucket_ref[:]  # [1, tile]
-    onehot = (b[0, :, None] == jax.lax.broadcasted_iota(I32, (b.shape[1], nbuckets), 1))
-    counts = jnp.sum(onehot.astype(jnp.float32), axis=0, keepdims=True)
-    out_ref[:] += counts.astype(I32)
-
-
-def radix_histogram(bucket: jnp.ndarray, nbuckets: int, tile: int = 8192,
-                    interpret: bool = False) -> jnp.ndarray:
-    """Counts of each bucket id in [0, nbuckets); ids outside the range
-    (e.g. the padding sentinel) are ignored. bucket: int32[N], N % tile == 0."""
-    n = bucket.shape[0]
-    tile = min(tile, n)
-    assert n % tile == 0, (n, tile)
-    out = pl.pallas_call(
-        functools.partial(_hist_kernel, nbuckets),
-        grid=(n // tile,),
-        in_specs=[pl.BlockSpec((1, tile), lambda i: (0, i), memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((1, nbuckets), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((1, nbuckets), I32),
-        interpret=interpret,
-    )(bucket.reshape(1, n))
-    return out[0]
+def radix_histogram(bucket: jnp.ndarray, nbuckets: int) -> jnp.ndarray:
+    """int32 counts of each bucket id in [0, nbuckets); ids outside the
+    range (e.g. the padding sentinel) are ignored."""
+    return jax.ops.segment_sum(jnp.ones(bucket.shape, I32), bucket,
+                               num_segments=nbuckets)
 
 
 def partition_starts(bucket_sorted: jnp.ndarray, npart: int) -> jnp.ndarray:

@@ -9,10 +9,7 @@ gather indices for an output of static capacity:
   rank(t) = t - offset[seg(t)].
 
 Implemented with a vectorized binary search (searchsorted) over the
-exclusive-cumsum offsets — gathers only. The earlier scatter+cummax
-variant was dropped: XLA:TPU executes general scatters serially
-(scripts/tpu_smoke.py measurements), searchsorted is log-n parallel
-gathers.
+exclusive-cumsum offsets — gathers only.
 """
 
 from __future__ import annotations
@@ -24,12 +21,9 @@ import jax.numpy as jnp
 def barrier(x):
     """`jax.lax.optimization_barrier` at operator phase boundaries.
 
-    Measured on TPU v5e (scripts/tpu_barrier_test.py): the fully fused
-    hash join ran 1757 ms at 1M x 1M while the identical graph with
-    barriers between phases ran 0.23 ms — XLA's fusion otherwise sinks
-    sort/searchsorted producers into huge serialized consumer fusions.
-    Barriers pin each phase's results to materialized buffers, which is
-    exactly the dataflow the roofline model (B2) accounts for.
+    Barriers pin each phase's results to materialized buffers, so XLA
+    does not sink sort/searchsorted producers into large consumer
+    fusions; this is the dataflow the roofline model (B2) accounts for.
     """
     return jax.lax.optimization_barrier(x)
 
@@ -43,14 +37,9 @@ def exclusive_cumsum(x: jnp.ndarray) -> jnp.ndarray:
 
 
 def searchsorted(a: jnp.ndarray, v: jnp.ndarray, side: str = "left") -> jnp.ndarray:
-    """`jnp.searchsorted` with method='sort' for large query sets.
-
-    The default 'scan' method emits a ~20-step while loop whose full-array
-    state XLA:TPU spills and copies every iteration when composed into a
-    larger program (optimized-HLO inspection: searchsorted whiles carrying
-    S(1)-space 1-2M arrays, ~1.9 s at 1M rows vs 0.3 ms for one
-    `lax.sort`). method='sort' lowers to the concat+stable-sort rank trick
-    — the same measured-fast primitive everything else here uses."""
+    """`jnp.searchsorted` with method='sort' for large query sets: it
+    lowers to the concat+stable-sort rank trick instead of the default
+    method's while loop over the full query array."""
     return jnp.searchsorted(a, v, side=side, method="sort")
 
 
@@ -64,6 +53,11 @@ def expand_segments(counts: jnp.ndarray, capacity: int):
               => overflow; caller must check)
       valid:  bool[capacity] — slot < total
     """
+    with jax.named_scope("expand"):
+        return _expand_segments(counts, capacity)
+
+
+def _expand_segments(counts: jnp.ndarray, capacity: int):
     counts = counts.astype(jnp.int32)
     offsets = barrier(exclusive_cumsum(counts))
     total = offsets[-1] + counts[-1]

@@ -1,9 +1,9 @@
 """C9 — filter: predicate -> mask -> compaction (SURVEY.md §2.1 C9).
 
 Reference capability: filter (BASELINE.json:L5,L10); oracle twin:
-oracle/main.cc filter(). TPU realization: vectorized predicate, exclusive
-cumsum of the keep-mask for destination slots, one scatter — static
-capacity preserved, new num_rows as a device scalar (never a host sync).
+oracle/main.cc filter(). Realization: vectorized predicate, then one
+stable multi-operand sort by the keep flag — static capacity preserved,
+new num_rows as a device scalar (never a host sync).
 """
 
 from __future__ import annotations
@@ -25,32 +25,12 @@ _OPS: dict[str, Callable] = {
 }
 
 
-def compact_indices(keep: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Gather indices that bring kept rows to the front, stable.
-
-    Sort-based, NOT scatter-based: XLA:TPU executes general scatters
-    serially (measured 179 ms for a 1M-row scatter-compact vs 0.2 ms for
-    the sort path — scripts/tpu_smoke.py), while stable sort of a byte key
-    is fast. Rows with keep=False land at the back in stable order.
-    Returns (perm, n_kept)."""
-    from tpq.ops._expand import barrier
-
-    # barrier BEFORE the sort: if the key's producer chain (often ending in
-    # an arange < traced-scalar compare) fuses into the sort input, XLA:TPU
-    # emits a serialized megafusion — measured 1955 ms vs 0.23 ms on the 1M
-    # join for this one edge (scripts/tpu_bisect2.py v1 vs v2).
-    keys = barrier(jnp.where(keep, 0, 1).astype(jnp.uint8))
-    perm = jnp.argsort(keys, stable=True)
-    return barrier(perm.astype(jnp.int32)), jnp.sum(keep, dtype=jnp.int32)
-
-
 def compact(t: Table, keep: jnp.ndarray) -> Table:
     """Keep rows where `keep` (bool[capacity]); stable order.
 
     ONE multi-operand stable sort by the keep flag, carrying every column
     as 32-bit planes — the sort applies the permutation to the data
-    directly. The earlier argsort+gather form cost 16 ms/M row in the
-    gathers alone (scripts/tpu_phase_bench.py) vs ~2 ms/M for the sort."""
+    directly, with no argsort+gather."""
     from tpq.ops._expand import barrier
     from tpq.ops.union_join import col_planes, planes_col
 
@@ -63,7 +43,8 @@ def compact(t: Table, keep: jnp.ndarray) -> Table:
         ps = col_planes(t.col(name))
         layout.append((name, len(ps)))
         flat += list(ps)
-    res = jax.lax.sort((flag, *flat), num_keys=1, is_stable=True)
+    with jax.named_scope("filter_compact"):
+        res = jax.lax.sort((flag, *flat), num_keys=1, is_stable=True)
     n_out = jnp.sum(keep, dtype=jnp.int32)
     cols, pos = {}, 1
     for name, cnt in layout:

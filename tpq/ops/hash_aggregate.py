@@ -2,23 +2,21 @@
 (SURVEY.md §2.1 C8; BASELINE.json:L5,L10 "hash aggregate (group-by
 count/sum)"; oracle twin: oracle/main.cc aggregate()).
 
-TPU realization (sort path, always available): co-sort by key, then
-compute every per-group statistic AT RUN-END POSITIONS with scans only —
-zero gathers, zero scatters (XLA:TPU executes general gather/scatter
-near-serially: 16 ms per 1M-row gather, scripts/tpu_phase_bench.py):
+Realization: co-sort by key, then compute every per-group statistic AT
+RUN-END POSITIONS with scans only — no gathers:
 
   * run starts by neighbor compare; run start index rs by cummax;
   * count at an end position = i - rs + 1;
   * sum over the run = c[i] - B, where c is the inclusive cumsum and B is
     a fill-forward (associative scan) of "cumsum just before my run's
     start" sampled at run starts;
-  * one multi-operand stable sort by the is-end flag compacts group rows
-    to the front, carrying key/count/sums as 32-bit planes.
+  * PACK (tpq/kernels/move.py: exclusive cumsum + scatter) compacts the
+    group rows to the front, carrying key/count/sums as 32-bit planes.
 
 Sums are wrapping int64 (associative-safe — no float reorder
 nondeterminism, SURVEY.md §4.4.4). Output columns: key, count,
 sum_<payload>... in input payload order; groups emitted in ascending key
-order (canonical already — the flag sort is stable).
+order (canonical already — PACK preserves order).
 """
 
 from __future__ import annotations
@@ -35,12 +33,6 @@ I32 = jnp.int32
 I64 = jnp.int64
 U32 = jnp.uint32
 
-# u64-as-planes cumsum and fill-forward live in tpq/ops/scan.py (tiled
-# forms — one flat cap-length scan costs 1-2 min of XLA:TPU compile at
-# the chunked pipeline's shapes; see that module's docstring)
-_u64_cumsum_planes = u64_cumsum_planes
-
-
 def hash_aggregate(t: Table, key: str = "key") -> Table:
     """Group t by `key`; count + sum every other column (wrapping int64).
     Output capacity = input capacity (ngroups <= nrows always).
@@ -48,10 +40,10 @@ def hash_aggregate(t: Table, key: str = "key") -> Table:
     Plane-native pipeline: every per-group statistic is computed on u32
     planes (u64-with-carry scans, borrow-chain run sums) and the planes
     feed the PACK mover directly; int64 columns are reconstructed only
-    for the packed group rows. Zero 64-bit vector ops on the cap-length
-    hot path."""
+    for the packed group rows."""
     cap = t.capacity
-    ts = sort_table_by_key(t, key)
+    with jax.named_scope("agg_sort"):
+        ts = sort_table_by_key(t, key)
     k = ts.col(key)
     valid = ts.valid_mask()
     i = jnp.arange(cap, dtype=I32)
@@ -72,7 +64,7 @@ def hash_aggregate(t: Table, key: str = "key") -> Table:
         lo, hi = col_planes(ts.col(n).astype(I64))
         lo = jnp.where(valid, lo, 0)
         hi = jnp.where(valid, hi, 0)
-        clo, chi = _u64_cumsum_planes(lo, hi)
+        clo, chi = u64_cumsum_planes(lo, hi)
         cum_pairs.append((clo, chi))
         pre_planes += [jnp.concatenate([zero1, clo[:-1]]),
                        jnp.concatenate([zero1, chi[:-1]])]
@@ -94,14 +86,11 @@ def hash_aggregate(t: Table, key: str = "key") -> Table:
         flat += [slo, chi - bhi - borrow]
         layout.append((f"sum_{n}", 2, I64))
 
-    # compact group rows (at end positions) to the front with the PACK
-    # mover (tpq/kernels/move.py) — one linear Pallas pass instead of a
-    # full-table flag sort (lax.sort scales superlinearly past ~2M rows,
-    # BASELINE.md #19; the 100M-row config-4 aggregate sits here)
+    # compact group rows (at end positions) to the front with PACK
     from tpq.kernels.move import pack
 
-    packed, n_groups = pack([p.astype(I32) for p in flat],
-                            is_end.astype(I32))
+    with jax.named_scope("pack"):
+        packed, n_groups = pack(flat, is_end)
     cols, pos = {}, 0
     for n, npl, dt in layout:
         cols[n] = planes_col(tuple(packed[pos + j].astype(U32)

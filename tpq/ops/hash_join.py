@@ -2,25 +2,17 @@
 (build+probe with open-addressing/robin-hood tables)"; oracle twin:
 oracle/main.cc hash_join()).
 
-The TPU design replaces the reference's per-tuple probe loop with two
-implementations behind one operator:
+The reference's per-tuple build/probe loop becomes the union-sort engine
+(tpq/ops/union_join.py): both relations are co-sorted by key, equal-key
+runs take the place of hash buckets, and matches are emitted with scans
+and a small compacted tail. It is exact for any key distribution,
+Zipf skew included: heavy keys past the inline rounds fall through to
+full expansion, and no per-partition capacity can overflow.
 
-  * impl="lane" (default, tpq/kernels/lane_table.py): radix-partitioned
-    VMEM-resident lane-bucket tables built+probed by compiled Pallas
-    kernels — the throughput path.
-
-  * impl="sorted" (this module, always available): hash-ordered layout.
-    Build side is sorted by the composite (hash slot << 32 | secondary
-    32-bit hash) — exactly the robin-hood table's content order (a
-    robin-hood table IS its entries sorted by home slot; SURVEY.md §7.4.1)
-    — probes binary-search that layout, candidates are verified by true
-    key equality and compacted (secondary-hash collisions are resolved
-    exactly, never assumed away).
-
-Semantics (both impls, oracle-exact): inner join on `key`; duplicate keys
-on both sides yield the full per-key cross product; output columns
-key, r_<R payloads...>, s_<S payloads...>; static out_capacity with
-overflow visible as num_rows > capacity.
+Semantics (oracle-exact): inner join on `key`; duplicate keys on both
+sides yield the full per-key cross product; output columns key,
+r_<R payloads...>, s_<S payloads...>; static out_capacity with overflow
+visible as num_rows > capacity.
 """
 
 from __future__ import annotations
@@ -33,42 +25,18 @@ def hash_join(
     s: Table,
     out_capacity: int,
     key: str = "key",
-    bits: int | None = None,
-    impl: str = "lane",
     probe_keep=None,
 ) -> Table:
     """Inner equi-join R ⋈ S on `key`.
 
-    impl="lane" (default): the compiled lane-bucket table path
-    (tpq/kernels/lane_table.py) — partitioned VMEM-resident hash tables
-    probed with a D-round in-register walk; falls back to the sorted
-    impl under lax.cond on any static-capacity violation (high skew).
-    impl="sorted": the union-sort engine (also merge_join's engine).
-    impl="skew": the heavy/light split (tpq/ops/skew_join.py) — heavy
-    probe keys ride a broadcast mini-table, the residual mass rides the
-    lane path; for zipf-skewed probes (BASELINE.json:L9).
-
     probe_keep (bool[s.capacity], optional): pushed-down probe-side
-    filter — semantically join(r, filter(s, keep)). The lane impl
-    absorbs the compaction into its probe grouping sort (zero extra
-    passes); other impls compact first.
+    filter — semantically join(r, filter(s, keep)); the probe side is
+    compacted before the join.
     """
-    if impl == "lane":
-        from tpq.kernels.lane2 import lane2_hash_join
+    from tpq.ops.union_join import union_join
 
-        return lane2_hash_join(r, s, out_capacity, key=key,
-                               probe_keep=probe_keep)
     if probe_keep is not None:
         from tpq.ops.filter import compact
 
         s = compact(s, probe_keep)
-    if impl == "skew":
-        from tpq.ops.skew_join import skew_hash_join
-
-        return skew_hash_join(r, s, out_capacity, key=key)
-    if impl != "sorted":
-        raise ValueError(f"unknown impl {impl!r}")
-
-    from tpq.ops.union_join import union_join
-
     return union_join(r, s, out_capacity, key=key)

@@ -2,11 +2,11 @@
 
 Reference capability: sort-merge join with radix-sorted runs + two-cursor
 merge (BASELINE.json:L5 "radix sort for the merge path"; oracle twin:
-oracle/main.cc merge_join). A cursor merge is serial control flow — the
-TPU realization instead:
+oracle/main.cc merge_join). A cursor merge is serial control flow; the
+vectorized form instead:
 
-  1. co-sort both relations by key in ONE union sort (radix sort kernel
-     C5 or `lax.sort`, SURVEY.md §7.3.4) — the sorted union IS the merge;
+  1. co-sort both relations by key in ONE union sort (`lax.sort`,
+     SURVEY.md §7.3.4) — the sorted union IS the merge;
   2. detect equal-key runs with neighbor compares and scans;
   3. emit the per-key cross product with fill-forward scans + a small
      compacted tail (tpq/ops/union_join.py) — no per-row loops.
@@ -35,15 +35,11 @@ def sort_table_by_key(t: Table, key: str = "key") -> Table:
 
     ONE stable sort with a SINGLE sort key and all other columns carried
     as 32-bit planes — the sort applies the permutation to the data; no
-    argsort+gather (gathers cost 16 ms/M on TPU,
-    scripts/tpu_phase_bench.py). Single-key matters: each extra sort KEY
-    multiplies the XLA:TPU comparator compile blowup (645 s measured for
-    the 2-key form at 1M rows, BASELINE.md #19). Padding ordering needs
-    no second key: padding rows are a suffix of the input (Table
-    invariant) with their keys where'd to the dtype max, so every valid
-    row either has a smaller key or, at a real MAX-key tie, precedes the
-    padding by stability — valid rows always end up in the first
-    num_rows slots. The ORIGINAL padding keys are not preserved (padding
+    argsort+gather. Padding ordering needs no second key: padding rows
+    are a suffix of the input (Table invariant) with their keys where'd
+    to the dtype max, so every valid row either has a smaller key or, at
+    a real MAX-key tie, precedes the padding by stability — valid rows
+    always end up in the first num_rows slots. The ORIGINAL padding keys are not preserved (padding
     contents are unspecified by contract)."""
     import jax
 
@@ -67,22 +63,14 @@ def sort_table_by_key(t: Table, key: str = "key") -> Table:
     return Table(cols, t.num_rows)
 
 
-def merge_join(r: Table, s: Table, out_capacity: int, key: str = "key",
-               sort_engine: str = "lax", key_bits: int = 64) -> Table:
+def merge_join(r: Table, s: Table, out_capacity: int,
+               key: str = "key") -> Table:
     """Inner equi-join R ⋈ S on `key`. Returns Table with static capacity
     `out_capacity`; .num_rows is the true match count (check overflow).
 
     Realized by the union-sort engine (tpq/ops/union_join.py): the union
     sort IS the merge (both relations co-sorted by key), emission is
-    scan-based. sort_engine="radix" runs the sort on C5's Pallas LSD
-    radix kernel (tpq/kernels/radix_sort.py) — the genuinely distinct
-    radix-sorted merge path of BASELINE.json:L5, with `key_bits`
-    narrowing the pass count when the key domain is bounded;
-    sort_engine="lax" (default) uses the one-shot multi-operand
-    `lax.sort`, which measures faster per call at benchmark shapes on
-    v5e but compiles pathologically (see radix_sort.py docstring for
-    the measured comparison)."""
+    scan-based."""
     from tpq.ops.union_join import union_join
 
-    return union_join(r, s, out_capacity, key=key,
-                      sort_engine=sort_engine, key_bits=key_bits)
+    return union_join(r, s, out_capacity, key=key)

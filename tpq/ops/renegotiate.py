@@ -8,7 +8,7 @@ capacity doubled (rounded to the true total when known). Deterministic —
 the re-run recomputes from the same inputs; nothing is resumed.
 
 Descends from the reference's implicit contract that a join always
-returns its full result (oracle/main.cc writes every match); on TPU the
+returns its full result (oracle/main.cc writes every match); here the
 price is one extra compile + run on the rare overflow, not dynamic
 shapes in the hot path.
 """

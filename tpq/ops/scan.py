@@ -1,16 +1,9 @@
-"""Tiled associative scans — the compile-time-safe form of every
-cap-length scan in the engine.
+"""Tiled associative scans — the form of every cap-length scan in the
+engine.
 
-Why: XLA:TPU expands a flat `associative_scan`/`cummax` over an N-row
-vector into ~log2(N) stages of odd-length slice/concat graphs; at the
-multi-million-row shapes of the chunked pipeline (BASELINE.json:L10)
-ONE such scan costs 1-2 min of remote compile and the config-4 chunk
-aggregate holds five of them — the program sat >17 min in the compiler
-across three r4/r5 attempts (scripts/tpu_r5_agg_bisect.py: cummax alone
-at 3.1M rows = 76 s compile; lane-join sorts and Pallas kernels at the
-same size compile in seconds).
-
-`tiled_scan` decomposes an inclusive scan over any associative combiner
+A flat `associative_scan` over an N-row vector lowers to ~log2(N)
+stages of odd-length slice/concat graphs, whose compile time grows with
+N. `tiled_scan` decomposes an inclusive scan over any associative combiner
 into: an axis-1 scan over [N/B, B] tiles (log2(B) stages of clean 2D
 ops), a flat scan over the N/B block totals (small), and one broadcast
 prefix-combine. Exact for any associative combiner — no identity
@@ -34,10 +27,8 @@ def tiled_scan(comb, xs: tuple, block: int = 512) -> tuple:
     elementwise (it is applied to 2-D tiles and broadcast (m,1)-vs-(m,B)
     in the prefix-combine step).
 
-    Below FLAT_MAX rows the flat form is kept: XLA:TPU's native lowering
-    is faster at runtime (the tiled form cost config-1 ~1.5 ms, measured
-    r5) and its compile time only explodes at multi-M shapes (76-674 s
-    per scan at 3.1M; fine at <= 2M).
+    Below FLAT_MAX rows, or when n is not a multiple of `block`, the
+    flat form is used.
     """
     n = xs[0].shape[0]
     if n < FLAT_MAX or n % block:
@@ -72,8 +63,7 @@ def cumsum_i32(x: jnp.ndarray, block: int = 512) -> jnp.ndarray:
 def u64_cumsum_planes(lo: jnp.ndarray, hi: jnp.ndarray,
                       block: int = 512):
     """Inclusive cumsum of u64 values held as (lo, hi) u32 planes.
-    Bit-identical to jnp.cumsum on the u64 column (both wrap mod 2^64)
-    but never emits a 64-bit vector op — v5e has no 64-bit vector ALU."""
+    Bit-identical to jnp.cumsum on the u64 column (both wrap mod 2^64)."""
 
     def comb(a, b):
         lo_s = a[0] + b[0]

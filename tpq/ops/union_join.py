@@ -1,13 +1,8 @@
-"""Gather-free union-sort equi-join — the shared engine under C6
-(hash_join impl="sorted") and C7 (merge_join).
+"""Union-sort equi-join — the shared engine under C6 (hash_join) and
+C7 (merge_join).
 
-Why this exists (measured on TPU v5e, scripts/tpu_phase_bench.py +
-scripts/tpu_union_probe.py): XLA:TPU executes general row gathers
-near-serially — 16 ms for a 1M-row gather, 137 ms at 4M — while
-multi-operand `lax.sort` moves the same rows at ~2 ms/M and scans
-(cumsum/cummax/associative_scan) cost <1 ms/M. The previous
-searchsorted+gather join therefore spent >95 % of its 1283 ms in
-gathers. This design eliminates every large gather:
+Every large row movement is a multi-operand sort or a scan; the only
+gathers are the small ones of the tail and the fallback:
 
   1. UNION SORT — one stable multi-operand sort of the concatenated
      relations by (invalid, key, side), CARRYING all payload columns as
@@ -32,7 +27,7 @@ gathers. This design eliminates every large gather:
   6. FALLBACK — if the tail exceeds its static capacities (adversarial
      duplicate-heavy data, e.g. all-equal keys), a `lax.cond` routes the
      whole emission through the classic expand+gather path (slow but
-     exact; only the taken branch executes on TPU).
+     exact; only the taken branch executes).
 
 Join semantics are oracle-exact (oracle/main.cc hash_join/merge_join):
 inner equi-join on `key`, duplicates yield the full per-key cross
@@ -57,8 +52,8 @@ I64 = jnp.int64
 
 
 # ---------------------------------------------------------------------------
-# 32-bit plane packing (TPU has no 64-bit vector ALU; sorts/gathers move
-# i64 columns as two u32 planes)
+# 32-bit plane packing (sorts and gathers move i64 columns as two u32
+# planes)
 # ---------------------------------------------------------------------------
 
 def col_planes(col: jnp.ndarray) -> tuple[jnp.ndarray, ...]:
@@ -88,9 +83,7 @@ def planes_col(planes: tuple[jnp.ndarray, ...], dtype) -> jnp.ndarray:
 
 def fill_forward(sample_valid: jnp.ndarray, planes: list[jnp.ndarray]):
     """Per-plane fill-forward: position i gets plane values from the most
-    recent j <= i with sample_valid[j]. Tiled scan (tpq/ops/scan.py) —
-    a flat cap-length associative_scan costs 1-2 min of XLA:TPU compile
-    at chunked-pipeline shapes."""
+    recent j <= i with sample_valid[j]. Tiled scan (tpq/ops/scan.py)."""
     from tpq.ops.scan import fill_forward as _ff
 
     return _ff(sample_valid, planes)
@@ -108,8 +101,6 @@ def union_join(
     dmax: int = 2,
     tail_rows_cap: int | None = None,
     tail_out_cap: int | None = None,
-    sort_engine: str = "lax",
-    key_bits: int = 64,
 ) -> Table:
     """Inner equi-join R ⋈ S on `key` (see module docstring)."""
     cr, cs = r.capacity, s.capacity
@@ -142,35 +133,11 @@ def union_join(
         s_slices[n] = slice(len(val_ops), len(val_ops) + len(ps))
         val_ops += [jnp.concatenate([zr, p]) for p in ps]
 
-    if sort_engine == "lax":
-        ops = jax.lax.optimization_barrier((inv, k, side, *val_ops))
+    ops = jax.lax.optimization_barrier((inv, k, side, *val_ops))
+    with jax.named_scope("union_sort"):
         sorted_ops = jax.lax.sort(ops, num_keys=3, is_stable=True)
-        inv_s, k_s, side_s = sorted_ops[0], sorted_ops[1], sorted_ops[2]
-        vals_s = list(sorted_ops[3:])
-    elif sort_engine == "radix":
-        # C5's Pallas LSD radix engine in place of lax.sort: bit order
-        # (LSD) side, key low->high (sign-biased hi plane so unsigned
-        # bit order == signed i64 order), invalid last. key_bits < 64
-        # narrows the passes when the key domain is known bounded.
-        from tpq.kernels.radix_sort import lsd_radix_sort_bits
-
-        klo, khi = col_planes(k.astype(jnp.int64))  # 2 planes for any key dtype
-        khi_b = (khi ^ jnp.uint32(0x80000000)).astype(I32)
-        planes = [inv.astype(I32), klo.astype(I32), khi_b,
-                  side, *[v.astype(I32) for v in val_ops]]
-        nb = min(key_bits, 64)
-        specs = [(3, 0)]
-        specs += [(1, b) for b in range(min(nb, 32))]
-        specs += [(2, b) for b in range(max(0, nb - 32))]
-        specs.append((0, 0))
-        sortp = lsd_radix_sort_bits(planes, specs)
-        inv_s, side_s = sortp[0], sortp[3]
-        k_s = planes_col(
-            (sortp[1].astype(jnp.uint32),
-             sortp[2].astype(jnp.uint32) ^ jnp.uint32(0x80000000)), k.dtype)
-        vals_s = [v.astype(jnp.uint32) for v in sortp[4:]]
-    else:
-        raise ValueError(f"unknown sort_engine {sort_engine!r}")
+    inv_s, k_s, side_s = sorted_ops[0], sorted_ops[1], sorted_ops[2]
+    vals_s = list(sorted_ops[3:])
     inv_s, k_s, side_s = barrier((inv_s, k_s, side_s))
 
     valid = inv_s == 0
@@ -294,7 +261,8 @@ def union_join(
             ps = planes_all[n]
             layout.append((n, len(ps)))
             flat += list(ps)
-        res = jax.lax.sort((sortkey, *flat), num_keys=1, is_stable=True)
+        with jax.named_scope("compact_sort"):
+            res = jax.lax.sort((sortkey, *flat), num_keys=1, is_stable=True)
         outp, pos = {}, 1
         for n, cnt in layout:
             outp[n] = tuple(res[pos + j][:out_capacity] for j in range(cnt))

@@ -2,7 +2,7 @@
 "full pipeline query: filter -> hash join -> hash aggregate").
 
 The reference runs operators as separate timed phases over materialized
-relations (SURVEY.md §3.1). The TPU design instead composes the whole
+relations (SURVEY.md §3.1). This design instead composes the whole
 pipeline into ONE jitted program so XLA fuses across operator
 boundaries — the filter's compaction feeds the join's partitioning
 without a round trip to HBM-materialized intermediates where fusion
@@ -26,7 +26,6 @@ def full_pipeline(
     filter_value,
     out_capacity: int,
     algo: str = "hash",
-    join_impl: str = "sorted",
 ) -> Table:
     """filter(fact) -> join(dim, fact') -> aggregate(by key).
 
@@ -35,18 +34,15 @@ def full_pipeline(
     aggregate chained on files).
 
     Fusion decision (SURVEY.md §2.1 C10): for the hash path the filter
-    is PUSHED DOWN into the join as a predicate mask — the probe
-    grouping sort absorbs the compaction, so the standalone filter
-    operator's multi-operand sort never runs. The merge path filters
-    materially (its co-sort wants a compact relation).
+    is PUSHED DOWN into the join as a predicate mask (`probe_keep`); the
+    merge path filters materially first.
     """
     if algo == "hash":
         from tpq.ops.filter import _OPS
 
         c = fact.col(filter_col)
         keep = _OPS[filter_op](c, jnp.asarray(filter_value, c.dtype))
-        joined = hash_join(dim, fact, out_capacity, impl=join_impl,
-                           probe_keep=keep)
+        joined = hash_join(dim, fact, out_capacity, probe_keep=keep)
     elif algo == "merge":
         fact_f = filter_table(fact, filter_col, filter_op, filter_value)
         joined = merge_join(dim, fact_f, out_capacity)
@@ -55,13 +51,12 @@ def full_pipeline(
     return hash_aggregate(joined)
 
 
-def jit_pipeline(out_capacity: int, filter_col="key", filter_op="lt", algo="hash",
-                 join_impl: str = "sorted"):
+def jit_pipeline(out_capacity: int, filter_col="key", filter_op="lt", algo="hash"):
     """Returns a jitted (dim, fact, filter_value) -> Table pipeline."""
 
     @jax.jit
     def run(dim: Table, fact: Table, filter_value) -> Table:
         return full_pipeline(dim, fact, filter_col, filter_op, filter_value,
-                             out_capacity, algo, join_impl)
+                             out_capacity, algo)
 
     return run

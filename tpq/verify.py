@@ -1,8 +1,8 @@
 """Scale-proportional verification (SURVEY.md §4.4.4).
 
 The C++ oracle proves bit-exactness up to ~10M rows in seconds. Beyond
-that (config 5, 1B x 1B) a full oracle join is infeasible, so verification
-becomes:
+that (configs 2, 4 and 5) a full oracle run is infeasible, so
+verification becomes:
 
   1. key-range slicing — the inner join commutes with key-range
      restriction: sigma_[a,b)(R join S) == sigma_[a,b)(R) join
@@ -14,6 +14,9 @@ becomes:
      materializing a canonical order. Two engine runs (or engine vs
      engine-on-different-mesh) must agree exactly; integer adds are
      associative-safe (SURVEY.md §4.4.4).
+  3. ground truth from the seed streams — the exact join cardinality and
+     the exact filter->join->aggregate group table, computed on the host
+     from the same seed-stable streams the engine's inputs come from.
 """
 
 from __future__ import annotations
@@ -90,3 +93,56 @@ def sample_key_ranges(keys: np.ndarray, n_ranges: int = 4,
         if lo < hi:
             ranges.append((lo, hi))
     return ranges
+
+
+def join_count(r_keys: np.ndarray, s_keys: np.ndarray, nkeys: int) -> int:
+    """Exact inner-join cardinality sum_k cnt_R(k) * cnt_S(k) for keys in
+    [0, nkeys)."""
+    cr = np.bincount(r_keys, minlength=nkeys).astype(np.int64)
+    cs = np.bincount(s_keys, minlength=nkeys).astype(np.int64)
+    return int((cr * cs).sum())
+
+
+def pipeline_expected_groups(n_dim: int, n_fact: int, fact_payloads: int,
+                             filter_value: int, dim_seed: int = 1,
+                             fact_seed: int = 2) -> dict[str, np.ndarray]:
+    """Exact group table of filter(key < filter_value) -> join -> aggregate
+    over the config-4 relations (dim: n_dim uniform keys in [0, n_dim), one
+    payload; fact: n_fact rows keyed into the same domain), from the
+    seed-stable streams. Columns key, count, sum_r_p0, sum_s_p<j>..., in
+    ascending key order; sums wrap as int64."""
+    from tpq import datagen
+
+    fk = datagen.uniform_keys(n_fact, n_dim, seed=fact_seed)
+    pays = datagen.payload_cols(n_fact, fact_payloads, seed=fact_seed)
+    dk = datagen.uniform_keys(n_dim, n_dim, seed=dim_seed)
+    dp = datagen.payload_cols(n_dim, 1, seed=dim_seed)
+    keep = fk < filter_value
+    fk2 = fk[keep]
+    dmult = np.bincount(dk, minlength=n_dim).astype(np.int64)
+    # exact wrapping int sums via np.add.at on int64
+    dsum = np.zeros(n_dim, np.int64)
+    np.add.at(dsum, dk, dp["p0"])
+    cnt = np.zeros(n_dim, np.int64)
+    np.add.at(cnt, fk2, dmult[fk2])
+    sum_r = np.zeros(n_dim, np.int64)
+    np.add.at(sum_r, fk2, dsum[fk2])
+    live = cnt > 0
+    out = {"key": np.nonzero(live)[0].astype(np.int64), "count": cnt[live],
+           "sum_r_p0": sum_r[live]}
+    for j in range(fact_payloads):
+        v = np.zeros(n_dim, np.int64)
+        np.add.at(v, fk2, pays[f"p{j}"][keep] * dmult[fk2])
+        out[f"sum_s_p{j}"] = v[live]
+    return out
+
+
+def assert_groups_equal(got: dict[str, np.ndarray],
+                        expected: dict[str, np.ndarray]) -> None:
+    """Byte equality of two group tables, after ordering `got` by key."""
+    order = np.argsort(got["key"], kind="stable")
+    assert list(got) == list(expected), (list(got), list(expected))
+    for name, want in expected.items():
+        have = np.asarray(got[name])[order]
+        assert have.shape == want.shape, f"{name}: {have.shape} vs {want.shape}"
+        assert np.array_equal(have, want), f"group column {name} differs"
